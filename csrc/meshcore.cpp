@@ -1,11 +1,11 @@
-// meshcore — native host-side mesh preprocessing for pumipic_tpu.
+// meshcore — native host-side mesh preprocessing for pumipic_jax.
 //
 // Plays the role of the reference's C++ mesh-distribution machinery
 // (src/pumipic_part_construct.cpp BFS kernels, src/pumipic_lb.cpp sbar maps,
 // src/pumipic_comm.cpp setupComm index builds) for the offline picpart
 // pipeline: the hot preprocessing loops that are irreducibly sequential or
 // hash-heavy run here instead of Python.  Exposed with a plain C ABI and
-// loaded via ctypes (pumipic_tpu/native.py); every entry point has a numpy
+// loaded via ctypes (pumipic_jax/native.py); every entry point has a numpy
 // fallback so the library is an accelerator, not a dependency.
 //
 // Build: g++ -O3 -march=native -shared -fPIC meshcore.cpp -o libmeshcore.so

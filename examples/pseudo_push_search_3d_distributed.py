@@ -2,7 +2,7 @@
 structure-integrated migration (the reference's 2-rank
 test/pseudoPushAndSearch.cpp run, scaled over a device mesh).
 
-On real hardware the mesh axis spans the TPU chips; without one, run on 8
+On real hardware the mesh axis spans the GPUs; without them, run on 8
 virtual CPU devices:
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -24,12 +24,12 @@ import jax
 if "xla_force_host_platform_device_count" in os.environ.get("XLA_FLAGS", ""):
     jax.config.update("jax_platforms", "cpu")
 
-from pumipic_tpu.mesh.generate import box_tet_mesh
-from pumipic_tpu.models.pseudo_push_and_search import (
+from pumipic_jax.mesh.generate import box_tet_mesh
+from pumipic_jax.models.pseudo_push_and_search import (
     PushSearchConfig,
     make_picparts_setup_3d,
 )
-from pumipic_tpu.parallel.mesh_axis import make_device_mesh
+from pumipic_jax.parallel.mesh_axis import make_device_mesh
 
 
 def main():

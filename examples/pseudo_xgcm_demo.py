@@ -9,10 +9,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import numpy as np
 
-from pumipic_tpu.library import Library
-from pumipic_tpu.mesh import annulus_mesh
-from pumipic_tpu.mesh.core import Mesh2D
-from pumipic_tpu.models.pseudo_xgcm import PseudoXGCm, XGCmConfig
+from pumipic_jax.library import Library
+from pumipic_jax.mesh import annulus_mesh
+from pumipic_jax.mesh.core import Mesh2D
+from pumipic_jax.models.pseudo_xgcm import PseudoXGCm, XGCmConfig
 
 
 def main():

@@ -1,6 +1,6 @@
 """Distributed pseudoXGCm demo: BFS-buffered PICparts over a device mesh.
 
-On real hardware the mesh axis spans the TPU chips; without one, run on 8
+On real hardware the mesh axis spans the GPUs; without them, run on 8
 virtual CPU devices:
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -23,9 +23,9 @@ if "xla_force_host_platform_device_count" in os.environ.get("XLA_FLAGS", ""):
 
 import numpy as np
 
-from pumipic_tpu.mesh import annulus_mesh
-from pumipic_tpu.models.pseudo_xgcm import GyroConfig, XGCmConfig, make_picparts_setup
-from pumipic_tpu.parallel.mesh_axis import make_device_mesh
+from pumipic_jax.mesh import annulus_mesh
+from pumipic_jax.models.pseudo_xgcm import GyroConfig, XGCmConfig, make_picparts_setup
+from pumipic_jax.parallel.mesh_axis import make_device_mesh
 
 
 def main():

@@ -1,5 +1,5 @@
 """Host diagnosis of the round-5 band-locator device hit-rate collapse
-(81.3% device A|B vs 94.3% host mirror, perf/band_device_probe.py):
+(81.3% device A|B vs 94.3% host mirror):
 
 Hypothesis: the rows are calibrated with the f64 host mirror while the
 device assigns cells in f32 — systematic f32 drift (ill-conditioned
@@ -8,7 +8,7 @@ cell boundaries relative to calibration.  If calibrating WITH the same
 f32 arithmetic recovers the hit rate, the fix is device-consistent
 calibration, not more precision.
 
-  JAX_PLATFORMS=cpu PYTHONPATH=/root/repo python perf/band_f32_diag.py
+  JAX_PLATFORMS=cpu python perf/band_f32_diag.py
 """
 import os
 import sys
@@ -16,9 +16,9 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
-from pumipic_tpu.mesh.core import Mesh2D
-from pumipic_tpu.mesh.gmsh import read_msh
-from pumipic_tpu.mesh.locator import detect_banded_locator, _top2_per_cell
+from pumipic_jax.mesh.core import Mesh2D
+from pumipic_jax.mesh.gmsh import read_msh
+from pumipic_jax.mesh.locator import detect_banded_locator, _top2_per_cell
 
 MESH = os.environ.get("BD_MESH", "data/xgc_like_120k.msh.gz")
 

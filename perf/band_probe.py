@@ -1,6 +1,6 @@
 """Host-side probe for the round-5 ragged flux-band locator (VERDICT r4 #1).
 
-Questions answered on the 120k tokamak workload (all CPU, no TPU):
+Questions answered on the 120k tokamak workload (all on the host CPU):
 
 1. How exactly can a fused-VPU-evaluable band coordinate psi(x, y) classify
    points into flux bands?  psi is fitted as a radial-polynomial x Fourier
@@ -19,8 +19,7 @@ Questions answered on the 120k tokamak workload (all CPU, no TPU):
    gap without any band machinery? (the orthogonal fallback lever)
 
 Run:
-  PYTHONPATH="/root/repo:$PYTHONPATH" JAX_PLATFORMS=cpu \
-      python perf/band_probe.py
+  JAX_PLATFORMS=cpu python perf/band_probe.py
 """
 import os
 import sys
@@ -31,7 +30,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
-from pumipic_tpu.mesh.gmsh import read_msh
+from pumipic_jax.mesh.gmsh import read_msh
 
 MESH = os.environ.get("BP_MESH", "data/xgc_like_120k.msh.gz")
 N_TEST = int(os.environ.get("BP_N", 200_000))

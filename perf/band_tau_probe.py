@@ -1,9 +1,9 @@
 """Hit-rate check for the transcendental-free band cell design (round 5):
-theta-bin replaced by the diamond-angle tau-bin (pure arithmetic; Pallas/
-XLA-cheap — perf/pallas_smoke.py), at T in {1024, 1536, 2048}.  Bench-like
+theta-bin replaced by the diamond-angle tau-bin (pure arithmetic), at T in
+{1024, 1536, 2048}.  Bench-like
 test distribution (class <= mdl_face), production-density calibration.
 
-  JAX_PLATFORMS=cpu PYTHONPATH=/root/repo python perf/band_tau_probe.py
+  JAX_PLATFORMS=cpu python perf/band_tau_probe.py
 """
 import os
 import sys
@@ -11,9 +11,9 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
-from pumipic_tpu.mesh.gmsh import read_msh
-from pumipic_tpu.mesh.core import Mesh2D
-from pumipic_tpu.mesh.locator import detect_banded_locator
+from pumipic_jax.mesh.gmsh import read_msh
+from pumipic_jax.mesh.core import Mesh2D
+from pumipic_jax.mesh.locator import detect_banded_locator
 
 MESH = os.environ.get("BP_MESH", "data/xgc_like_120k.msh.gz")
 N_TEST = 200_000

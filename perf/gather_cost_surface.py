@@ -1,10 +1,6 @@
-"""Gather cost surface on this chip (round 5): ms per 10M-index row
-gather vs {table rows} x {consumed columns}.  The band-arm investigation
-found XLA's row gather has (at least) two regimes: ~490k-row tables are
-row-transaction-bound (~68 ms, consumed columns nearly free), while the
-184k-row band table ran 31 ms at 2 consumed cols but ~105 ms at 14 —
-column cost is table-size dependent.  This probe pins the surface for
-the shapes the framework actually gathers from:
+"""Row-gather cost surface: ms per 10M-index row gather vs {table rows} x
+{consumed columns}, for the shapes the framework actually gathers from
+(locator peel tables and walk tables):
 
   rows in {24k (3D walk_geom), 123k (2D walk_geom), 184k (band cells),
            490k (cart cpe4 cells), 1.96M (cart cpe16 cells)}
@@ -12,13 +8,14 @@ the shapes the framework actually gathers from:
 
 All arms in ONE process, fori-fused, indices evolve per pass.
 
-  PYTHONPATH="/root/repo:$PYTHONPATH" python perf/gather_cost_surface.py
+  python perf/gather_cost_surface.py
 """
 import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +29,10 @@ W = int(os.environ.get("GS_W", 14))      # stored columns
 
 
 def main():
+    from pumipic_jax.utils.cache import enable_compile_cache
+
+    enable_compile_cache(ROOT)
+    print(f"device: {jax.devices()[0].device_kind}", flush=True)
     rng = np.random.default_rng(0)
     idx_base = {r: rng.integers(0, r, N).astype(np.int32) for r in ROWS}
 

@@ -21,12 +21,12 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 
-from pumipic_tpu.models.pseudo_xgcm import (  # noqa: E402
+from pumipic_jax.models.pseudo_xgcm import (  # noqa: E402
     XGCmConfig, GyroConfig, make_default_mesh, seed_particles_per_element,
     uniform_points_in_elements,
 )
-from pumipic_tpu.mesh.locator import build_locator_grid, _host_walk  # noqa: E402
-from pumipic_tpu.ops import push as push_ops  # noqa: E402
+from pumipic_jax.mesh.locator import build_locator_grid, _host_walk  # noqa: E402
+from pumipic_jax.ops import push as push_ops  # noqa: E402
 
 
 def main():

@@ -1,17 +1,16 @@
 """Structure-comparison report: ratios of per-op times vs the SCS layout.
 
-TPU analog of the reference's perf-harness post-processor
+Analog of the reference's perf-harness post-processor
 (performance_tests/output_compare.py:24-27), which reformats ps_combo logs
 into rebuild / pseudo-push / migration averages and compares structures
 against Sell-C-sigma. Here the sweep harness (perf/sweep.py) already emits
-structured JSON, so this reads ``sweep_results.json`` and prints one table
+structured JSON (SWEEP_OUT), so this reads that file and prints one table
 per (ne, np, dist) configuration with each structure's absolute times and
 its ratio vs SCS (ratio < 1 means faster than SCS).
 
-  python perf/output_compare.py [sweep_results.json]
+  python perf/output_compare.py <sweep json>
 """
 import json
-import os
 import sys
 
 OPS = [("pseudo_push_ms", "pseudo-push"),
@@ -20,8 +19,7 @@ OPS = [("pseudo_push_ms", "pseudo-push"),
 
 
 def main():
-    path = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "sweep_results.json")
+    path = sys.argv[1]
     with open(path) as f:
         rows = json.load(f)
 

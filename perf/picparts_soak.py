@@ -9,12 +9,13 @@ well-beyond-toy size, asserting per step:
 
 Runs on the 8-device virtual CPU mesh (the mpirun -np 8 analog) because
 multi-chip hardware is unavailable; sizes default to 2M particles on the
-24k-element mesh — ~100x the CPU weak-scaling fixture.  Appends a record
-to BENCH_SIDE.json (stats record, not a throughput claim).
+24k-element mesh — ~100x the CPU weak-scaling fixture.  Prints a stats
+record, not a throughput claim.
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
-  PYTHONPATH="/root/repo:$PYTHONPATH" python perf/picparts_soak.py
+  python perf/picparts_soak.py
 """
+import json
 import os
 import sys
 import time
@@ -33,11 +34,11 @@ import numpy as np
 
 
 def main():
-    from pumipic_tpu.mesh.generate import annulus_mesh
-    from pumipic_tpu.models.pseudo_xgcm import (
+    from pumipic_jax.mesh.generate import annulus_mesh
+    from pumipic_jax.models.pseudo_xgcm import (
         GyroConfig, XGCmConfig, make_picparts_setup,
     )
-    from pumipic_tpu.parallel.mesh_axis import make_device_mesh
+    from pumipic_jax.parallel.mesh_axis import make_device_mesh
 
     n = int(os.environ.get("PS_PTCLS", 2_000_000))
     steps = int(os.environ.get("PS_STEPS", 50))
@@ -112,12 +113,8 @@ def main():
             "sync_verified_verts": len(seen),
         },
     }
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    from bench import record_side
-
-    record_side("picparts-churn-soak-cpu8", out)
-    print("SOAK PASS", out["detail"], flush=True)
+    print(json.dumps(out), flush=True)
+    print("SOAK PASS", flush=True)
 
 
 if __name__ == "__main__":

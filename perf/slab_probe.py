@@ -7,8 +7,7 @@ A slab-aligned cell (analytic z-slab index × xy-grid) has ZERO z-straddle;
 the question is the A/B(CD) candidate coverage at matched table bytes vs
 the production cartesian cpe16 grid (13.6% A∪B miss, 40.5 MB @26col).
 
-  PYTHONPATH="/root/repo:$PYTHONPATH" JAX_PLATFORMS=cpu \
-      python perf/slab_probe.py
+  JAX_PLATFORMS=cpu python perf/slab_probe.py
 """
 import os
 import sys
@@ -19,7 +18,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
-from pumipic_tpu.mesh.generate import box_tet_mesh
+from pumipic_jax.mesh.generate import box_tet_mesh
 from band_probe import topk_per_cell, report
 
 N_SIDE = int(os.environ.get("SP_NSIDE", 16))

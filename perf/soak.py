@@ -1,12 +1,12 @@
 """Production soak: long flagship run with invariant + leak assertions.
 
-50 evolving steps of the 10M-particle pseudoXGCm dp step on the chip,
+50 evolving steps of the 10M-particle pseudoXGCm dp step on one device,
 asserting per step that (a) alive count only decreases via genuine boundary
 exits, (b) the deposited charge equals the alive count (conservation), and
 (c) the live device-buffer census stays flat across the loop
 (utils.memaudit — the destroy_test role at production scale).
 
-  PYTHONPATH=/root/repo:$PYTHONPATH python perf/soak.py
+  python perf/soak.py
 """
 import os
 import sys
@@ -16,14 +16,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-from pumipic_tpu.models.pseudo_xgcm import (
+from pumipic_jax.models.pseudo_xgcm import (
     GyroConfig, XGCmConfig, make_default_mesh, make_dp_setup,
 )
-from pumipic_tpu.parallel.mesh_axis import make_device_mesh
-from pumipic_tpu.utils import memaudit
+from pumipic_jax.parallel.mesh_axis import make_device_mesh
+from pumipic_jax.utils import memaudit
 
 
 def main():
+    from pumipic_jax.utils.cache import enable_compile_cache
+
+    enable_compile_cache(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     n = int(os.environ.get("SOAK_PTCLS", 10_000_000))
     steps = int(os.environ.get("SOAK_STEPS", 50))
     mesh = make_default_mesh(int(os.environ.get("SOAK_ELEMS", 24_000)))

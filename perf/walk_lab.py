@@ -1,10 +1,8 @@
 """walk_lab — THE parameterized in-process walk/locator A/B harness.
 
-Round-5 consolidation of the walk_opt1-22 one-off harnesses (now in
-perf/archive/ for provenance): every knob those experiments varied is an
-ARM SPEC here, and all arms of one invocation run IN ONE PROCESS with
-evolving state — the only decision-grade comparison mode on this relay
-(docs/PERFORMANCE.md "Measurement rules").
+Every knob of the walk/locator design is an ARM SPEC here, and all arms of
+one invocation run IN ONE PROCESS on one device with evolving state, on a
+persistent compilation cache.
 
 Arm spec grammar (semicolon-separated arms; each arm is +-joined k=v):
   analytic=auto|off|force      structured-annulus exact locate
@@ -21,9 +19,9 @@ Examples:
   WL_MESH=data/xgc_like_120k.msh.gz WL_N=10000000 \
   WL_ARMS="analytic=off+bandloc=auto+bandT=1024;\
 analytic=off+bandloc=auto+bandT=2048;analytic=off+bandloc=off" \
-  PYTHONPATH="/root/repo:$PYTHONPATH" python perf/walk_lab.py
+  python perf/walk_lab.py
 
-Records append to perf/walk_lab_results.json keyed by
+With WL_OUT=<path>, records append to that JSON file keyed by
 "<mesh>|N=<n>|<arm>" with ms/step + config — the RecordTime-table
 discipline (reference performance_tests/output_compare.py role).
 """
@@ -33,7 +31,8 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,8 +43,7 @@ MESH = os.environ.get("WL_MESH", "")          # "" = 24k annulus analog
 MESH_E = int(os.environ.get("WL_ELEMS", 24_000))
 ARMS = os.environ.get(
     "WL_ARMS", "analytic=off+bandloc=auto;analytic=off+bandloc=off")
-OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                   "walk_lab_results.json")
+OUT = os.environ.get("WL_OUT", "")
 
 
 def parse_arm(spec: str):
@@ -55,7 +53,7 @@ def parse_arm(spec: str):
 
 
 def build_cfg(kv, mesh):
-    from pumipic_tpu.models.pseudo_xgcm import GyroConfig, XGCmConfig
+    from pumipic_jax.models.pseudo_xgcm import GyroConfig, XGCmConfig
 
     widths = None
     if "widths" in kv:
@@ -78,12 +76,15 @@ def build_cfg(kv, mesh):
 
 
 def main():
-    from pumipic_tpu.mesh.core import Mesh2D
-    from pumipic_tpu.models.pseudo_xgcm import make_default_mesh, make_dp_setup
-    from pumipic_tpu.parallel.mesh_axis import make_device_mesh
+    from pumipic_jax.mesh.core import Mesh2D
+    from pumipic_jax.models.pseudo_xgcm import make_default_mesh, make_dp_setup
+    from pumipic_jax.parallel.mesh_axis import make_device_mesh
+    from pumipic_jax.utils.cache import enable_compile_cache
 
+    enable_compile_cache(ROOT)
+    print(f"device: {jax.devices()[0].device_kind}", flush=True)
     if MESH:
-        from pumipic_tpu.mesh.gmsh import read_msh
+        from pumipic_jax.mesh.gmsh import read_msh
 
         coords, tris, cls = read_msh(MESH)
         mesh = Mesh2D.from_arrays(coords, tris, cls)
@@ -96,7 +97,7 @@ def main():
           flush=True)
 
     recs = {}
-    if os.path.exists(OUT):
+    if OUT and os.path.exists(OUT):
         try:
             with open(OUT) as f:
                 recs = json.load(f)
@@ -132,10 +133,11 @@ def main():
         # free the arm's tables before the next build
         del state, step, f
 
-    with open(OUT, "w") as f:
-        json.dump(recs, f, indent=1, sort_keys=True)
-        f.write("\n")
-    print("\nrecorded to", OUT, flush=True)
+    if OUT:
+        with open(OUT, "w") as f:
+            json.dump(recs, f, indent=1, sort_keys=True)
+            f.write("\n")
+        print("\nrecorded to", OUT, flush=True)
     for name, dt in sorted(results, key=lambda x: x[1]):
         print(f"  {dt:8.2f} ms/step  {name}")
 

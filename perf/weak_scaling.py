@@ -1,13 +1,13 @@
 """Weak scaling of the full BFS-picparts step on virtual CPU devices.
 
-Reproduces the docs/PERFORMANCE.md "Distributed mechanics" table: fixed
+Fixed
 particles per rank, rank counts 1/2/4/8, full pipeline (push → local
 search → neighbor-scoped migration + LB → gyro scatter → fan-in/fan-out
-sync).  CPU timings are NOT TPU-representative; this validates collective
+sync).  CPU timings say nothing of a GPU; this validates collective
 structure, migration volume and imbalance stay bounded as ranks grow.
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-  PYTHONPATH=/root/repo:$PYTHONPATH python perf/weak_scaling.py
+  python perf/weak_scaling.py
 """
 import os
 import sys
@@ -21,11 +21,11 @@ if "xla_force_host_platform_device_count" in os.environ.get("XLA_FLAGS", ""):
 
 import numpy as np
 
-from pumipic_tpu.mesh.generate import annulus_mesh
-from pumipic_tpu.models.pseudo_xgcm import (
+from pumipic_jax.mesh.generate import annulus_mesh
+from pumipic_jax.models.pseudo_xgcm import (
     GyroConfig, XGCmConfig, make_picparts_setup,
 )
-from pumipic_tpu.parallel.mesh_axis import make_device_mesh
+from pumipic_jax.parallel.mesh_axis import make_device_mesh
 
 
 def main():

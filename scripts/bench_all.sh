@@ -1,9 +1,9 @@
 #!/usr/bin/env bash
-# Run every bench mode sequentially (ONE TPU process at a time) and record
-# each as a BENCH_SIDE.json entry (bench.py record_side).  The driver's
-# flagship metric stays the plain `python bench.py` stdout line.
+# Run every bench mode sequentially: one process at a time, since a JAX
+# process reserves most of the GPU's memory when it starts.  Each mode
+# prints its own JSON line.
 #
-#   PYTHONPATH=/root/repo bash scripts/bench_all.sh
+#   bash scripts/bench_all.sh
 set -e
 cd "$(dirname "$0")/.."
 

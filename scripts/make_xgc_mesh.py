@@ -17,8 +17,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from pumipic_tpu.mesh.generate import tokamak_mesh  # noqa: E402
-from pumipic_tpu.mesh.gmsh import write_msh2  # noqa: E402
+from pumipic_jax.mesh.generate import tokamak_mesh  # noqa: E402
+from pumipic_jax.mesh.gmsh import write_msh2  # noqa: E402
 
 
 def main():

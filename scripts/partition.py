@@ -7,8 +7,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from pumipic_tpu.mesh import gmsh
-from pumipic_tpu.parallel import picparts as ppm
+from pumipic_jax.mesh import gmsh
+from pumipic_jax.parallel import picparts as ppm
 
 
 def main():

@@ -7,11 +7,11 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from pumipic_tpu.mesh import generate as gen
-from pumipic_tpu.parallel import balancer as lbm
-from pumipic_tpu.parallel import migrate as mig
-from pumipic_tpu.parallel import picparts as ppm
-from pumipic_tpu.parallel.mesh_axis import RANK_AXIS, make_device_mesh
+from pumipic_jax.mesh import generate as gen
+from pumipic_jax.parallel import balancer as lbm
+from pumipic_jax.parallel import migrate as mig
+from pumipic_jax.parallel import picparts as ppm
+from pumipic_jax.parallel.mesh_axis import RANK_AXIS, make_device_mesh
 
 R = 4
 
@@ -113,7 +113,7 @@ def test_repartition_reduces_imbalance():
 
 
 def test_picparts_step_with_lb():
-    from pumipic_tpu.models.pseudo_xgcm import (
+    from pumipic_jax.models.pseudo_xgcm import (
         GyroConfig, XGCmConfig, make_picparts_setup,
     )
 

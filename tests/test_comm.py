@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from pumipic_tpu.parallel.mesh_axis import (
+from pumipic_jax.parallel.mesh_axis import (
     RANK_AXIS,
     make_device_mesh,
     num_ranks,
@@ -141,8 +141,8 @@ def test_reduce_comm_array_synthetic_tables():
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pumipic_tpu.parallel import reduce as red
-    from pumipic_tpu.parallel.mesh_axis import RANK_AXIS, make_device_mesh
+    from pumipic_jax.parallel import reduce as red
+    from pumipic_jax.parallel.mesh_axis import RANK_AXIS, make_device_mesh
 
     R, K, V = 2, 1, 2
     mesh = make_device_mesh(R)
@@ -187,7 +187,7 @@ def test_reduce_comm_array_synthetic_tables():
 
 
 def test_gid_to_lid_translation():
-    from pumipic_tpu.parallel import migrate as mig
+    from pumipic_jax.parallel import migrate as mig
     import numpy as np
 
     gids = jnp.asarray([40, 10, 30, 20])    # local order
@@ -200,11 +200,11 @@ def test_gid_to_lid_translation():
 
 def test_migrate_payload_pack_unpack_types():
     """The packed-s32 single-buffer payload (floats bitcast, bools as 0/1;
-    the s32 carrier is required — f32 lanes flush small-int denormal bit
-    patterns on TPU) round-trips every supported dtype (SendViews/RecvViews
+    the s32 carrier is required — f32 lanes can flush small-int denormal
+    bit patterns) round-trips every supported dtype (SendViews/RecvViews
     parity, SCS_migrate.h:147-175)."""
     import numpy as np
-    from pumipic_tpu.parallel import migrate as mig
+    from pumipic_jax.parallel import migrate as mig
 
     state = {
         "elem": jnp.zeros((4,), jnp.int32),
@@ -242,8 +242,8 @@ def test_neighbor_plan_ring_topology():
     """Edge coloring of a ring: 8 ranks each with 2 neighbors needs only a
     handful of rounds (payload O(degree), not O(R))."""
     import numpy as np
-    from pumipic_tpu.parallel import distributor as dst
-    from pumipic_tpu.parallel import migrate as mig
+    from pumipic_jax.parallel import distributor as dst
+    from pumipic_jax.parallel import migrate as mig
 
     R = 8
     nb = np.zeros((R, R), bool)
@@ -271,7 +271,7 @@ def test_hier_all_to_all_matches_flat():
     all_to_all over the combined axis."""
     from functools import partial
 
-    from pumipic_tpu.parallel.mesh_axis import hier_all_to_all
+    from pumipic_jax.parallel.mesh_axis import hier_all_to_all
 
     mesh2 = make_device_mesh(8, slices=2)
     AX = ("slice", "ranks")
@@ -295,7 +295,7 @@ def test_hier_all_to_all_matches_flat():
 def test_reduce_comm_array_hier_matches_flat():
     from functools import partial
 
-    from pumipic_tpu.parallel import reduce as red
+    from pumipic_jax.parallel import reduce as red
 
     mesh2 = make_device_mesh(8, slices=2)
     AX = ("slice", "ranks")
@@ -334,7 +334,7 @@ def test_reduce_comm_array_hier_matches_flat():
 def test_migrate_world_hier_matches_flat():
     from functools import partial
 
-    from pumipic_tpu.parallel import migrate as mig
+    from pumipic_jax.parallel import migrate as mig
 
     mesh2 = make_device_mesh(8, slices=2)
     AX = ("slice", "ranks")
@@ -388,7 +388,7 @@ def test_neighbor_plan_slice_split():
     edge coloring (each round a partial permutation)."""
     from types import SimpleNamespace
 
-    from pumipic_tpu.parallel.migrate import build_neighbor_plan
+    from pumipic_jax.parallel.migrate import build_neighbor_plan
 
     Rn = 8
     nb = np.zeros((Rn, Rn), bool)

@@ -4,7 +4,7 @@ linetri_intersection and moller_trumbore single-element analytic tests
 import jax.numpy as jnp
 import numpy as np
 
-from pumipic_tpu.ops import geometry as geo
+from pumipic_jax.ops import geometry as geo
 
 
 def _tri_inv_basis(a, b, c):

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pumipic_tpu.io import checkpoint as ckpt
-from pumipic_tpu.mesh import generate as gen, gmsh
-from pumipic_tpu.mesh.core import Mesh2D
-from pumipic_tpu.parallel import picparts as ppm
-from pumipic_tpu.particles import CSR, SellCSigma, SCSInput, distribute, pfile
+from pumipic_jax.io import checkpoint as ckpt
+from pumipic_jax.mesh import generate as gen, gmsh
+from pumipic_jax.mesh.core import Mesh2D
+from pumipic_jax.parallel import picparts as ppm
+from pumipic_jax.particles import CSR, SellCSigma, SCSInput, distribute, pfile
 
 
 def test_picparts_roundtrip(tmp_path):
@@ -114,8 +114,8 @@ def test_osh_roundtrip(tmp_path):
     """Omega_h-style .osh directory round-trip: compressed + uncompressed,
     tags, classification (pumipic_file.cpp:46-207 design)."""
     import numpy as np
-    from pumipic_tpu.io import osh
-    from pumipic_tpu.mesh import generate as gen
+    from pumipic_jax.io import osh
+    from pumipic_jax.mesh import generate as gen
 
     coords, tris, cls = gen.tokamak_mesh(6, 24)
     vt = {"potential": np.linspace(0, 1, coords.shape[0])}
@@ -136,8 +136,8 @@ def test_osh_roundtrip(tmp_path):
 
 def test_osh_multipart_and_dispatch(tmp_path):
     import numpy as np
-    from pumipic_tpu.io import osh
-    from pumipic_tpu.mesh import generate as gen
+    from pumipic_jax.io import osh
+    from pumipic_jax.mesh import generate as gen
 
     coords, tris, cls = gen.annulus_mesh(3, 12, 0.3, 1.0)
     path = str(tmp_path / "multi.osh")
@@ -154,7 +154,7 @@ def test_osh_multipart_and_dispatch(tmp_path):
     # load_mesh dispatch: .osh and .msh.gz through one entry point
     c, ev, cl = osh.load_mesh(path)
     np.testing.assert_array_equal(ev, tris[:half])
-    from pumipic_tpu.mesh.gmsh import write_msh2
+    from pumipic_jax.mesh.gmsh import write_msh2
     gz = str(tmp_path / "round.msh.gz")
     write_msh2(gz, coords, tris, cls)
     c3, ev3, cl3 = osh.load_mesh(gz)
@@ -164,7 +164,7 @@ def test_osh_multipart_and_dispatch(tmp_path):
 
 def test_osh_rejects_garbage(tmp_path):
     import pytest
-    from pumipic_tpu.io import osh
+    from pumipic_jax.io import osh
 
     bad = tmp_path / "bad.osh"
     bad.write_bytes(b"\x00\x01 definitely not a mesh")

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pumipic_tpu.mesh import adjacency as adj
-from pumipic_tpu.mesh import generate as gen
-from pumipic_tpu.mesh.core import Mesh2D, Mesh3D
+from pumipic_jax.mesh import adjacency as adj
+from pumipic_jax.mesh import generate as gen
+from pumipic_jax.mesh.core import Mesh2D, Mesh3D
 
 
 def test_rectangle_adjacency():
@@ -125,9 +125,9 @@ def test_xgc_mesh_file_loads_and_search_oracle():
     import os
     path = os.path.join(os.path.dirname(__file__), "..", "data",
                         "xgc_like_24k.msh.gz")
-    from pumipic_tpu.mesh.gmsh import read_msh
-    from pumipic_tpu.mesh.locator import build_locator_grid
-    from pumipic_tpu.ops import search as search_ops
+    from pumipic_jax.mesh.gmsh import read_msh
+    from pumipic_jax.mesh.locator import build_locator_grid
+    from pumipic_jax.ops import search as search_ops
 
     coords, tris, cls = read_msh(path)
     assert tris.shape[0] > 20_000
@@ -164,9 +164,9 @@ def test_xgc_120k_mesh_loads_and_search_oracle():
     loads from file, valid geometry, ~120k elements, and the
     grid-accelerated search proves containment on it."""
     import os
-    from pumipic_tpu.io.osh import load_mesh
-    from pumipic_tpu.mesh.locator import build_locator_grid
-    from pumipic_tpu.ops import search as search_ops
+    from pumipic_jax.io.osh import load_mesh
+    from pumipic_jax.mesh.locator import build_locator_grid
+    from pumipic_jax.ops import search as search_ops
 
     path = os.path.join(os.path.dirname(__file__), "..", "data",
                         "xgc_like_120k.msh.gz")
@@ -216,7 +216,7 @@ def test_gmsh_rejects_corrupt_and_unsupported(tmp_path):
     structurally plausible mesh; must raise.  (b) MSH 3.x/4.0 block
     layouts differ from both the 2.2 and 4.1 parsers; routing them into
     the 4.1 parser crashed uninformatively — must report the version."""
-    from pumipic_tpu.mesh.gmsh import read_msh
+    from pumipic_jax.mesh.gmsh import read_msh
 
     # (a) a 2.2 file whose triangle references node 99 (never listed)
     msh = "\n".join([

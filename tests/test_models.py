@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pumipic_tpu.mesh import generate as gen
-from pumipic_tpu.mesh.core import Mesh2D, Mesh3D
-from pumipic_tpu.models import search2d
-from pumipic_tpu.models.pseudo_push_and_search import (
+from pumipic_jax.mesh import generate as gen
+from pumipic_jax.mesh.core import Mesh2D, Mesh3D
+from pumipic_jax.models import search2d
+from pumipic_jax.models.pseudo_push_and_search import (
     PseudoPushAndSearch,
     PushSearchConfig,
 )
-from pumipic_tpu.models.pseudo_xgcm import (
+from pumipic_jax.models.pseudo_xgcm import (
     GyroConfig,
     PseudoXGCm,
     XGCmConfig,
@@ -56,7 +56,7 @@ def test_gyro_scatter_matches_naive_oracle():
     per-particle/per-ring-point python loop implementing the reference
     semantics literally (gyroScatter.hpp:169-232), for both the uniform
     placeholder radius and a per-particle radius."""
-    from pumipic_tpu.ops import scatter as sc
+    from pumipic_jax.ops import scatter as sc
 
     mesh = _small_mesh()
     R, P = 3, 4
@@ -179,7 +179,7 @@ def test_pseudo_push_and_search_walls(wall):
 
 
 def test_gitr_like_app():
-    from pumipic_tpu.models.gitr_like import GitrConfig, GitrLike
+    from pumipic_jax.models.gitr_like import GitrConfig, GitrLike
 
     coords, tets = gen.box_tet_mesh(3, 3, 3, 0.01, 0.01, 0.01)
     mesh = Mesh3D.from_arrays(coords, tets)
@@ -199,7 +199,7 @@ def test_gitr_like_app():
 
 
 def test_vtk_writer(tmp_path):
-    from pumipic_tpu.io import vtk
+    from pumipic_jax.io import vtk
 
     coords, tris, cls = gen.disk_mesh(3, 6)
     p = str(tmp_path / "m.vtk")
@@ -216,7 +216,7 @@ def test_vtk_writer(tmp_path):
 
 
 def test_library_context():
-    from pumipic_tpu.library import Library
+    from pumipic_jax.library import Library
 
     lib = Library(num_devices=4)
     assert lib.world_size == 4
@@ -224,7 +224,7 @@ def test_library_context():
 
 
 def test_gitr_like_reflecting_walls():
-    from pumipic_tpu.models.gitr_like import GitrConfig, GitrLike
+    from pumipic_jax.models.gitr_like import GitrConfig, GitrLike
 
     coords, tets = gen.box_tet_mesh(3, 3, 3, 0.01, 0.01, 0.01)
     mesh = Mesh3D.from_arrays(coords, tets)
@@ -241,7 +241,7 @@ def test_elliptical_push_rot_matches_trig():
     """The trig-free rotation push (per-element (cosΔ, sinΔ) table applied to
     carried (cosφ, sinφ)) must match the reference-order trig push
     (ellipticalPush.hpp:36-71) to f32 accuracy over many steps."""
-    from pumipic_tpu.ops import push as push_ops
+    from pumipic_jax.ops import push as push_ops
     import jax
 
     rng = np.random.default_rng(7)
@@ -304,8 +304,8 @@ def test_flagship_per_particle_gyro_radius():
     'TODO compute the radius' placeholder (gyroScatter.hpp:185)."""
     import jax
     from jax.sharding import Mesh as JMesh
-    from pumipic_tpu.models.pseudo_xgcm import make_dp_setup
-    from pumipic_tpu.ops import scatter as sc
+    from pumipic_jax.models.pseudo_xgcm import make_dp_setup
+    from pumipic_jax.ops import scatter as sc
 
     mesh = _small_mesh()
     gyro = GyroConfig(rmax=0.2, num_rings=3, points_per_ring=4,
@@ -319,7 +319,7 @@ def test_flagship_per_particle_gyro_radius():
     fwd = np.asarray(fields["fwd"])
 
     # recompute the deposition from the post-step state via the ops path
-    from pumipic_tpu.models.pseudo_xgcm import build_gyro_mappings
+    from pumipic_jax.models.pseudo_xgcm import build_gyro_mappings
     gmap, _ = build_gyro_mappings(mesh, gyro)
     want = np.asarray(sc.scatter_to_mapped_verts(
         sc.accumulate_to_rings(
@@ -351,8 +351,8 @@ def test_annulus_analytic_locate_matches_walk(hkd):
     (the latter drives real boundary exits)."""
     import jax
     from jax.sharding import Mesh as JMesh
-    from pumipic_tpu.mesh.generate import annulus_mesh
-    from pumipic_tpu.models.pseudo_xgcm import make_dp_setup
+    from pumipic_jax.mesh.generate import annulus_mesh
+    from pumipic_jax.models.pseudo_xgcm import make_dp_setup
 
     h, k, d = hkd
     coords, tris, cls = annulus_mesh(8, 48, 0.3, 1.0)
@@ -384,9 +384,9 @@ def test_annulus_analytic_locate_matches_walk(hkd):
 def test_annulus_detection_negatives():
     """Detection must refuse shaped meshes (tokamak flux surfaces) and
     perturbed annuli — those keep the general walk."""
-    from pumipic_tpu.mesh.generate import annulus_mesh, tokamak_mesh
-    from pumipic_tpu.mesh.locator import detect_annulus_structured
-    from pumipic_tpu.models.pseudo_xgcm import make_default_mesh
+    from pumipic_jax.mesh.generate import annulus_mesh, tokamak_mesh
+    from pumipic_jax.mesh.locator import detect_annulus_structured
+    from pumipic_jax.models.pseudo_xgcm import make_default_mesh
 
     tc, tt, _ = tokamak_mesh(10, 40)
     assert detect_annulus_structured(tc, tt) is None
@@ -410,8 +410,8 @@ def test_detection_rejects_same_geometry_different_ids():
     shuffle arm asserts id CORRECTNESS against a barycentric containment
     oracle instead of rejection (full permutation coverage:
     tests/test_search.py::test_kuhn_detection_permutation_tolerant)."""
-    from pumipic_tpu.mesh.generate import annulus_mesh, box_tet_mesh
-    from pumipic_tpu.mesh.locator import (
+    from pumipic_jax.mesh.generate import annulus_mesh, box_tet_mesh
+    from pumipic_jax.mesh.locator import (
         detect_annulus_structured, detect_box_kuhn,
     )
 
@@ -450,9 +450,9 @@ def test_annulus_ring_class_proof():
     proven ONLY when cls matches annulus_mesh's per-ring classification;
     a custom classification keeps the locator but not the rotation
     shortcut, and class_of reproduces the mesh table exactly."""
-    from pumipic_tpu.mesh.generate import annulus_mesh
-    from pumipic_tpu.mesh.locator import detect_annulus_structured
-    from pumipic_tpu.ops import push as push_ops
+    from pumipic_jax.mesh.generate import annulus_mesh
+    from pumipic_jax.mesh.locator import detect_annulus_structured
+    from pumipic_jax.ops import push as push_ops
 
     c, t, cls = annulus_mesh(6, 20, 0.3, 1.0)
     loc = detect_annulus_structured(c, t, cls=cls)
@@ -480,8 +480,8 @@ def test_banded_class_detection_and_values():
     class_from_bands reproduces the class table element-for-element (so the
     gather-free rotation values are bit-identical via rot_vals_from_class).
     Shuffled classification is rejected."""
-    from pumipic_tpu.mesh.generate import tokamak_mesh
-    from pumipic_tpu.ops import push as push_ops
+    from pumipic_jax.mesh.generate import tokamak_mesh
+    from pumipic_jax.ops import push as push_ops
 
     c, t, cls = tokamak_mesh(10, 48)
     starts = push_ops.detect_banded_class(cls)
@@ -508,9 +508,9 @@ def test_dp_step_banded_rotation_matches_table():
     rot-table-gather arm (rot_analytic=False)."""
     import dataclasses
 
-    from pumipic_tpu.mesh.generate import tokamak_mesh
-    from pumipic_tpu.models.pseudo_xgcm import XGCmConfig, make_dp_setup
-    from pumipic_tpu.parallel.mesh_axis import make_device_mesh
+    from pumipic_jax.mesh.generate import tokamak_mesh
+    from pumipic_jax.models.pseudo_xgcm import XGCmConfig, make_dp_setup
+    from pumipic_jax.parallel.mesh_axis import make_device_mesh
 
     coords, tris, cls = tokamak_mesh(8, 40)
     mesh = Mesh2D.from_arrays(coords, tris, cls)
@@ -536,7 +536,7 @@ def test_kuhn_analytic_locator_matches_walk(wall):
     applicability by connectivity equality) must reproduce the
     grid-accelerated walk bit-for-bit on a box mesh, for both convex-exact
     wall modes."""
-    from pumipic_tpu.mesh.generate import box_tet_mesh
+    from pumipic_jax.mesh.generate import box_tet_mesh
 
     coords, tets = box_tet_mesh(5, 4, 6, 1.0, 0.8, 1.2)
     mesh = Mesh3D.from_arrays(coords, tets)
@@ -565,7 +565,7 @@ def test_gyro_scatter_one_ring():
     shifted keys to elem-1 (neighbor corruption, element 0's deposits
     vanishing).  With one ring each active particle must deposit exactly
     once into its own element's vertices."""
-    from pumipic_tpu.ops import scatter as sc
+    from pumipic_jax.ops import scatter as sc
 
     mesh = _small_mesh()
     V = mesh.nverts
@@ -597,7 +597,7 @@ def test_gitr_reflect_reflects_velocity():
     Specular reflection must flip the normal velocity component and
     conserve speed: a zero-field particle aimed at the +x wall of the unit
     box must come back with v_x < 0 and |v| unchanged."""
-    from pumipic_tpu.models.gitr_like import GitrConfig, GitrLike
+    from pumipic_jax.models.gitr_like import GitrConfig, GitrLike
 
     coords, tets = gen.box_tet_mesh(3, 3, 3)
     mesh = Mesh3D.from_arrays(coords, tets)

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pumipic_tpu.particles import (
+from pumipic_jax.particles import (
     CSR,
     DPS,
     CabM,
@@ -20,7 +20,7 @@ from pumipic_tpu.particles import (
     SCSInput,
     distribute,
 )
-from pumipic_tpu.particles.structure import grow_if_overflowed, rebuild_checked
+from pumipic_jax.particles.structure import grow_if_overflowed, rebuild_checked
 
 E = 25
 N = 200
@@ -290,70 +290,45 @@ def test_metrics_padding():
     ps.print_metrics()
 
 
-def test_count_per_key_matmul_matches_sorted():
-    """The MXU one-hot-matmul histogram must agree exactly with the sorted
-    histogram (0/1 bf16 operands, f32 accumulation ==> exact counts)."""
+@pytest.mark.parametrize("num_keys,n,lo,masked", [
+    (129, 50_000, 0, False),             # key space below 2^16
+    (70_000, 200_000, 0, False),         # key space above 2^16
+    ((1 << 24) + 64, 4096, 1 << 24, False),   # key values at/above 2^24
+    (300, 10_000, 0, False),             # heavy overflow bucket (== nk)
+    (5000, 50_000, 0, True),             # inactive keys masked out
+])
+def test_count_per_key_matches_bincount(num_keys, n, lo, masked):
+    """The int32 scatter-add histogram agrees exactly with np.bincount:
+    keys equal to num_keys (the overflow bucket) and masked inactive keys
+    are not counted."""
     import numpy as np
     import jax.numpy as jnp
-    from pumipic_tpu.ops import scatter
+    from pumipic_jax.ops import scatter
 
-    rng = np.random.default_rng(17)
-    for nk in (7, 129, 5000):
-        key = rng.integers(0, nk + 1, 50_000)    # nk == overflow bucket
-        a = np.asarray(scatter.count_per_key(jnp.asarray(key, jnp.int32), nk))
-        b = np.asarray(
-            scatter.count_per_key_matmul(jnp.asarray(key, jnp.int32), nk))
-        want = np.bincount(key, minlength=nk + 1)[:nk]
-        np.testing.assert_array_equal(a, want)
-        np.testing.assert_array_equal(b.astype(np.int64), want)
-
-
-def test_count_per_key_matmul_int8_exact():
-    """int8 one-hot operands (half the HBM bytes of the bf16 default, the
-    matmul's bound) accumulate 0/1 values exactly in int32 — counts must
-    be bit-equal to the bf16 path and to bincount."""
-    import numpy as np
-    import jax.numpy as jnp
-    from pumipic_tpu.ops import scatter
-
-    rng = np.random.default_rng(29)
-    for nk in (129, 24_000):
-        key = rng.integers(0, nk + 1, 200_000)
-        got = np.asarray(scatter.count_per_key_matmul(
-            jnp.asarray(key, jnp.int32), nk, onehot_dtype=jnp.int8))
-        want = np.bincount(key, minlength=nk + 1)[:nk]
-        np.testing.assert_array_equal(got.astype(np.int64), want)
-
-
-def test_count_per_key_matmul_chunked(monkeypatch):
-    """Key counts >= _MATMUL_MAX_N run in int32-accumulated chunks (incl. a
-    ragged tail padded with the overflow bucket) and stay exact."""
-    import numpy as np
-    import jax.numpy as jnp
-    from pumipic_tpu.ops import scatter
-
-    monkeypatch.setattr(scatter, "_MATMUL_MAX_N", 4096)
-    rng = np.random.default_rng(23)
-    nk = 300
-    for n in (4096, 4097, 10_000):                   # exact, ragged, multi
-        key = rng.integers(0, nk + 1, n)             # nk == overflow bucket
-        got = np.asarray(
-            scatter.count_per_key_matmul(jnp.asarray(key, jnp.int32), nk))
-        want = np.bincount(key, minlength=nk + 1)[:nk]
-        np.testing.assert_array_equal(got.astype(np.int64), want)
+    rng = np.random.default_rng(num_keys)
+    key = rng.integers(lo, num_keys + 1, n)          # num_keys == overflow
+    if num_keys == 300:
+        key[: n // 2] = num_keys
+    active = rng.random(n) < 0.7 if masked else np.ones(n, bool)
+    dev_key = jnp.where(jnp.asarray(active), jnp.asarray(key, jnp.int32),
+                        num_keys)
+    got = np.asarray(scatter.count_per_key(dev_key, num_keys))
+    want = np.bincount(key[active], minlength=num_keys + 1)[:num_keys]
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
 
 
 def test_gather_fields_s32_carrier_contract():
     """The packed rebuild gather must carry s32 lanes: int32 bitcast into
-    f32 lanes produces denormals that the TPU flushes to zero (round-3c —
-    a 10M construction silently lost 99.9% of its particles while CPU
-    tests stayed green).  Locks the carrier dtype and the exact
+    f32 lanes produces denormals that an accelerator backend may flush to
+    zero — a 10M construction once silently lost 99.9% of its particles
+    while CPU tests stayed green.  Locks the carrier dtype and the exact
     round-trip of every payload class, including the bit patterns that
     are denormal when misread as f32."""
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from pumipic_tpu.particles import structure as S
+    from pumipic_jax.particles import structure as S
 
     n = 64
     fields = {
@@ -379,7 +354,7 @@ def test_gather_fields_s32_carrier_contract():
     concats = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "concatenate"]
     assert concats, "pack path not taken"
     assert all(e.outvars[0].aval.dtype == jnp.int32 for e in concats), (
-        "pack carrier must be s32 (f32 lanes flush denormal int bits on TPU)")
+        "pack carrier must be s32 (f32 lanes can flush denormal int bits)")
 
 
 def test_out_of_range_new_elem_removes_in_every_layout():
@@ -389,7 +364,7 @@ def test_out_of_range_new_elem_removes_in_every_layout():
     mask)."""
     import numpy as np
     import jax.numpy as jnp
-    from pumipic_tpu.particles import CSR, DPS, CabM, SellCSigma
+    from pumipic_jax.particles import CSR, DPS, CabM, SellCSigma
 
     ne, n = 7, 40
     elems = np.arange(n) % ne
@@ -411,7 +386,7 @@ def test_reserved_field_names_rejected():
     import pytest
     import numpy as np
     import jax.numpy as jnp
-    from pumipic_tpu.particles import CSR
+    from pumipic_jax.particles import CSR
 
     with pytest.raises(ValueError, match="reserved"):
         CSR(4, np.zeros(8, np.int64), field_spec={"elem": ((), jnp.int32)})
@@ -522,7 +497,7 @@ def test_reshuffle_misfit_falls_back_to_sort():
 
 
 def test_reshuffle_mover_budget_falls_back(monkeypatch):
-    from pumipic_tpu.particles import structure as S
+    from pumipic_jax.particles import structure as S
 
     ppe, elems, fields = _fixture()
     ps = SellCSigma(E, elems, fields=fields,
@@ -556,7 +531,7 @@ def test_reshuffle_multi_step_with_interleaved_fallback():
 
 
 def test_scs_extra_padding_checkpoint_roundtrip(tmp_path):
-    from pumipic_tpu.io.checkpoint import (
+    from pumipic_jax.io.checkpoint import (
         read_particle_structure,
         write_particle_structure,
     )
@@ -579,7 +554,7 @@ def test_cabm_grow_spread_population():
     (ceil(ppe/soa_width) slots per element) — the recovery path raised
     ValueError instead of growing.  It must fall back to layout-sized
     capacity like the SCS branch does."""
-    from pumipic_tpu.particles.structure import CabM
+    from pumipic_jax.particles.structure import CabM
 
     E_many = 300
     n = 200

@@ -9,11 +9,11 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from pumipic_tpu.mesh import generate as gen
-from pumipic_tpu.parallel import migrate as mig
-from pumipic_tpu.parallel import picparts as ppm
-from pumipic_tpu.parallel import reduce as red
-from pumipic_tpu.parallel.mesh_axis import RANK_AXIS, make_device_mesh
+from pumipic_jax.mesh import generate as gen
+from pumipic_jax.parallel import migrate as mig
+from pumipic_jax.parallel import picparts as ppm
+from pumipic_jax.parallel import reduce as red
+from pumipic_jax.parallel.mesh_axis import RANK_AXIS, make_device_mesh
 
 R = 4
 
@@ -262,7 +262,7 @@ def test_picparts_3d_per_dim_comm():
     """3D picparts: face (dim-2... dim-1=2) and edge (dim-1) comm tables
     exist, obey min-ownership, and reduce correctly on the edge dim —
     the reference builds comm for every dim (pumipic_comm.cpp:12-184)."""
-    from pumipic_tpu.mesh.core import Mesh3D
+    from pumipic_jax.mesh.core import Mesh3D
 
     coords, tets = gen.box_tet_mesh(4, 4, 4)
     owners = ppm.partition_rcb(coords, tets, R)
@@ -448,7 +448,7 @@ def test_migrate_structure_all_layouts(layout, neighbor):
     rides the collective and rebuilds its layout invariant on arrival —
     the reference's per-structure migrate (scs/SCS_migrate.h:4-221,
     csr/CSR_migrate.hpp, cabm/cabm_migrate.hpp, dps/dps_migrate.hpp)."""
-    from pumipic_tpu.particles import CSR, DPS, CabM, SellCSigma, SCSInput
+    from pumipic_jax.particles import CSR, DPS, CabM, SellCSigma, SCSInput
 
     coords, tris, owners, pp = _build()
     mesh = make_device_mesh(R)
@@ -456,7 +456,7 @@ def test_migrate_structure_all_layouts(layout, neighbor):
     pp_d = jax.device_put(pp, sharding)
     plan = None
     if neighbor:
-        from pumipic_tpu.parallel import distributor as dstm
+        from pumipic_jax.parallel import distributor as dstm
 
         plan = mig.build_neighbor_plan(dstm.from_picparts(pp))
 
@@ -566,7 +566,7 @@ def test_pseudo_push_and_search_distributed_3d(layout):
     reference's 2-rank pseudoPushAndSearch with migrate_lb_ptcls
     (test/pseudoPushAndSearch.cpp:204-206,524).  Counts conserved modulo
     genuine domain exits; migration must actually fire."""
-    from pumipic_tpu.models.pseudo_push_and_search import (
+    from pumipic_jax.models.pseudo_push_and_search import (
         PushSearchConfig, make_picparts_setup_3d,
     )
 
@@ -616,7 +616,7 @@ def test_picparts_3d_kuhn_matches_walk():
     ranks under migration + LB."""
     import dataclasses
 
-    from pumipic_tpu.models.pseudo_push_and_search import (
+    from pumipic_jax.models.pseudo_push_and_search import (
         PushSearchConfig, make_picparts_setup_3d,
     )
 
@@ -658,7 +658,7 @@ def test_picparts_analytic_matches_walk():
     per-rank walk across multi-step runs with migration + LB."""
     import dataclasses
 
-    from pumipic_tpu.models.pseudo_xgcm import (
+    from pumipic_jax.models.pseudo_xgcm import (
         GyroConfig, XGCmConfig, make_picparts_setup,
     )
 
@@ -698,7 +698,7 @@ def test_picparts_analytic_matches_walk():
 
 
 def test_pseudo_xgcm_picparts_end_to_end():
-    from pumipic_tpu.models.pseudo_xgcm import (
+    from pumipic_jax.models.pseudo_xgcm import (
         GyroConfig, XGCmConfig, make_picparts_setup,
     )
 
@@ -742,7 +742,7 @@ def test_pseudo_xgcm_picparts_end_to_end():
 
 
 def test_distributor_and_ptn_files(tmp_path):
-    from pumipic_tpu.parallel import distributor as dist
+    from pumipic_jax.parallel import distributor as dist
 
     coords, tris, owners, pp = _build()
     d = dist.from_picparts(pp)
@@ -838,7 +838,7 @@ def test_reduce_comm_array_vector_field():
 
 def test_picparts_3d():
     """3D picparts: build, invariants, and buffered migration on a tet mesh."""
-    from pumipic_tpu.mesh.core import Mesh3D
+    from pumipic_jax.mesh.core import Mesh3D
 
     coords, tets = gen.box_tet_mesh(6, 6, 6)
     owners = ppm.partition_rcb(coords, tets, R)
@@ -965,8 +965,8 @@ def test_reduce_comm_array_bcast():
 def test_checkpoint_resume_continuation():
     """Checkpoint mid-run, restore, and verify the continuation matches an
     uninterrupted run exactly (the file_rw + resume semantics)."""
-    from pumipic_tpu.io import checkpoint as ckpt
-    from pumipic_tpu.models.pseudo_xgcm import (
+    from pumipic_jax.io import checkpoint as ckpt
+    from pumipic_jax.models.pseudo_xgcm import (
         GyroConfig, XGCmConfig, make_picparts_setup,
     )
     import tempfile
@@ -1016,7 +1016,7 @@ def test_neighbor_migrate_matches_world(method, layers, safe):
     """Neighbor-scoped ppermute migration (Distributor subset exchange,
     SCS_migrate.h:41-62) is bit-identical to the world all_to_all, with a
     payload that scales with the neighbor count, not R."""
-    from pumipic_tpu.parallel import distributor as dst
+    from pumipic_jax.parallel import distributor as dst
 
     coords, tris, owners, pp = _build(method, layers, safe)
     mesh = make_device_mesh(R)
@@ -1097,7 +1097,7 @@ def test_neighbor_migrate_matches_world(method, layers, safe):
 def test_neighbor_plan_coloring():
     """Every directed neighbor edge gets exactly one round; rounds are
     partial permutations (each rank <=1 send and <=1 recv per round)."""
-    from pumipic_tpu.parallel import distributor as dst
+    from pumipic_jax.parallel import distributor as dst
 
     coords, tris, owners, pp = _build()
     plan = mig.build_neighbor_plan(dst.from_picparts(pp))
@@ -1156,7 +1156,7 @@ def test_edge_bridge_grows_slower():
 
 
 def test_bridge_dim_3d_face():
-    from pumipic_tpu.mesh.core import Mesh3D
+    from pumipic_jax.mesh.core import Mesh3D
 
     coords, tets = gen.box_tet_mesh(4, 4, 4)
     owners = ppm.partition_rcb(coords, tets, R)
@@ -1182,8 +1182,8 @@ def test_picparts_single_rank_early_out():
     step (search + scatter + owner sync) correctly."""
     import jax
     from jax.sharding import Mesh as JMesh
-    from pumipic_tpu.mesh import generate as gen
-    from pumipic_tpu.models.pseudo_xgcm import (
+    from pumipic_jax.mesh import generate as gen
+    from pumipic_jax.models.pseudo_xgcm import (
         GyroConfig, XGCmConfig, make_picparts_setup,
     )
 
@@ -1222,7 +1222,7 @@ def test_migrate_lossless_under_cap1_overflow(neighbor):
     pp_d = jax.device_put(pp, sharding)
     plan = None
     if neighbor:
-        from pumipic_tpu.parallel import distributor as dstm
+        from pumipic_jax.parallel import distributor as dstm
 
         plan = mig.build_neighbor_plan(dstm.from_picparts(pp))
 
@@ -1291,7 +1291,7 @@ def test_migrate_lossless_under_cap1_overflow(neighbor):
 def test_shrink_picparts_capacity_conserves():
     """Adaptive capacity shrink: live particles compact to a slot prefix,
     pid multiset conserved, refusal when new_cap < live width."""
-    from pumipic_tpu.models.pseudo_xgcm import shrink_picparts_capacity
+    from pumipic_jax.models.pseudo_xgcm import shrink_picparts_capacity
 
     mesh = make_device_mesh(R)
     sharding = NamedSharding(mesh, P(RANK_AXIS))
@@ -1332,10 +1332,10 @@ def test_capacity_monitor_end_to_end_matches_unresized():
     (idle slots are pure width).  The reference re-sizes its views from
     padding inputs under the same misfit conditions (SCS_rebuild.h:3-120,
     scs_input.hpp:15-64)."""
-    from pumipic_tpu.models.pseudo_xgcm import (
+    from pumipic_jax.models.pseudo_xgcm import (
         GyroConfig, XGCmConfig, make_picparts_setup,
     )
-    from pumipic_tpu.parallel.capacity import (
+    from pumipic_jax.parallel.capacity import (
         CapacityMonitor, CapacityPolicy, resize_capacity,
     )
 
@@ -1404,7 +1404,7 @@ def test_capacity_monitor_end_to_end_matches_unresized():
 def test_capacity_monitor_recommendations():
     """Policy unit checks: shrink only past the hysteresis gain, grow on
     observed need or on admission-quota pressure (kept_home)."""
-    from pumipic_tpu.parallel.capacity import CapacityMonitor, CapacityPolicy
+    from pumipic_jax.parallel.capacity import CapacityMonitor, CapacityPolicy
 
     pol = CapacityPolicy(alive_headroom=1.0, sent_factor=1, sent_floor=0,
                          slack=0, shrink_min_gain=0.1, grow_factor=1.5)
@@ -1433,10 +1433,10 @@ def test_banded_route_derivation_decode_and_negatives():
     its decode matches the packed-gather route (lid/dest/sbar/noncore) for
     EVERY global element at every rank, and non-band partitions (RCB) are
     rejected so callers keep the always-correct gather."""
-    from pumipic_tpu.mesh.locator import detect_annulus_structured
-    from pumipic_tpu.parallel import balancer as lbm
-    from pumipic_tpu.parallel import banded_route as brm
-    from pumipic_tpu.parallel import migrate as mig
+    from pumipic_jax.mesh.locator import detect_annulus_structured
+    from pumipic_jax.parallel import balancer as lbm
+    from pumipic_jax.parallel import banded_route as brm
+    from pumipic_jax.parallel import migrate as mig
 
     coords, tris, cls = _full_mesh()
     an = detect_annulus_structured(coords, tris, cls=cls)
@@ -1493,7 +1493,7 @@ def test_picparts_banded_route_matches_gather_route():
     the packed [lid|route] gather step across multi-step runs with LB +
     migration (same picparts, same numbering — only the routing
     arithmetic differs)."""
-    from pumipic_tpu.models.pseudo_xgcm import (
+    from pumipic_jax.models.pseudo_xgcm import (
         GyroConfig, XGCmConfig, make_picparts_setup,
     )
 
@@ -1600,7 +1600,7 @@ def test_picparts_per_particle_radius_engages():
     migration) and change the deposition."""
     import dataclasses
 
-    from pumipic_tpu.models.pseudo_xgcm import (
+    from pumipic_jax.models.pseudo_xgcm import (
         GyroConfig, XGCmConfig, make_picparts_setup,
     )
 

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pumipic_tpu.mesh import generate as gen
-from pumipic_tpu.mesh.core import Mesh2D, Mesh3D
-from pumipic_tpu.ops import search
+from pumipic_jax.mesh import generate as gen
+from pumipic_jax.mesh.core import Mesh2D, Mesh3D
+from pumipic_jax.ops import search
 
 
 def _cross2(u, v):
@@ -130,7 +130,7 @@ def test_trace_dispatch():
 
 
 def test_search_2d_accel_matches_plain():
-    from pumipic_tpu.mesh.locator import build_locator_grid
+    from pumipic_jax.mesh.locator import build_locator_grid
 
     coords, tris, cls = gen.annulus_mesh(6, 32, 0.3, 1.0)
     m = Mesh2D.from_arrays(coords, tris, cls)
@@ -162,7 +162,7 @@ def test_search_2d_accel_polar_grid_matches_cartesian():
     produce identical search results to cartesian cells — the grid only
     seeds candidates/guesses; containment and the walk decide.  Also pins
     the auto heuristic: annular meshes go polar, disks stay cartesian."""
-    from pumipic_tpu.mesh.locator import build_locator_grid
+    from pumipic_jax.mesh.locator import build_locator_grid
 
     coords, tris, cls = gen.tokamak_mesh(10, 48)
     m = Mesh2D.from_arrays(coords, tris, cls)
@@ -185,8 +185,8 @@ def test_search_2d_accel_polar_grid_matches_cartesian():
     assert bool(res_p.all_found)
     # auto heuristic: a genuine annulus goes polar; the tokamak meshes'
     # near-closed core (r_min/r_max ~ 0.056) and shaped flux surfaces make
-    # polar cells LOSE there (perf/polar_grid_probe.py: 72.9 vs 78.9% hit
-    # at cpe4 on the 120k mesh), so they stay cartesian; disks too
+    # polar cells LOSE there (72.9 vs 78.9% host-measured hit rate at cpe4
+    # on the 120k mesh), so they stay cartesian; disks too
     ac, at, _ = gen.annulus_mesh(6, 32, 0.3, 1.0)
     assert build_locator_grid(ac, at).polar
     assert not build_locator_grid(coords, tris).polar
@@ -195,8 +195,8 @@ def test_search_2d_accel_polar_grid_matches_cartesian():
 
 
 def test_locator_grid_guess_quality():
-    from pumipic_tpu.mesh.locator import build_locator_grid
-    from pumipic_tpu.ops import geometry as geo
+    from pumipic_jax.mesh.locator import build_locator_grid
+    from pumipic_jax.ops import geometry as geo
 
     coords, tris, cls = gen.disk_mesh(8, 8)
     m = Mesh2D.from_arrays(coords, tris, cls)
@@ -289,7 +289,7 @@ def test_search_3d_hybrid_method():
             w = np.dot(vv[3] - vv[0], np.cross(vv[1] - vv[0], vv[2] - vv[0]))
             assert w / vol >= -1e-4, (i, b[i])
     # accel path accepts the hybrid core too
-    from pumipic_tpu.mesh.locator import build_locator_grid_3d
+    from pumipic_jax.mesh.locator import build_locator_grid_3d
 
     grid = build_locator_grid_3d(coords, tets, walk_geom=m.walk_geom)
     res_acc = search.search_mesh_3d_accel(
@@ -309,7 +309,7 @@ def test_search_2d_pt():
 
 
 def test_search_3d_accel_matches_plain():
-    from pumipic_tpu.mesh.locator import build_locator_grid_3d
+    from pumipic_jax.mesh.locator import build_locator_grid_3d
 
     coords, tets = gen.box_tet_mesh(5, 5, 5)
     m = Mesh3D.from_arrays(coords, tets)
@@ -452,7 +452,7 @@ def test_search_2d_accel_with_rows_and_compacted_guess_retry():
     (including boundary-hitting guesses that retry from their true previous
     element) through compacted levels, and results must still equal the
     plain walk exactly."""
-    from pumipic_tpu.mesh.locator import build_locator_grid
+    from pumipic_jax.mesh.locator import build_locator_grid
 
     coords, tris, cls = gen.annulus_mesh(6, 32, 0.3, 1.0)
     m = Mesh2D.from_arrays(coords, tris, cls)
@@ -498,7 +498,7 @@ def test_cell_lines_decision_exactness():
     """The separating-line decision must pick the candidate that actually
     contains the point whenever the point is in A∪B (A's barycentric
     coordinate toward a NEIGHBOR B is exact on A∪B)."""
-    from pumipic_tpu.mesh.locator import build_locator_grid
+    from pumipic_jax.mesh.locator import build_locator_grid
 
     coords, tris, cls = gen.annulus_mesh(8, 48, 0.3, 1.0)
     m = Mesh2D.from_arrays(coords, tris, cls)
@@ -543,7 +543,7 @@ def test_search_aux_capture_matches_final_element():
     """aux_capture: the walk must return the aux table rows of each
     particle's FINAL element, whether it resolved in the peel (either
     candidate) or deep in the compaction pyramid."""
-    from pumipic_tpu.mesh.locator import build_locator_grid
+    from pumipic_jax.mesh.locator import build_locator_grid
 
     coords, tris, cls = gen.annulus_mesh(6, 32, 0.3, 1.0)
     m = Mesh2D.from_arrays(coords, tris, cls)
@@ -713,7 +713,7 @@ def test_check_initial_parents_locator_robust_on_nonconvex():
     """Without a locator the repair walk can cross the annulus hole and
     delete (greedy-walk non-convexity, documented); WITH the model's
     locator every in-domain origin is repaired."""
-    from pumipic_tpu.mesh.locator import build_locator_grid
+    from pumipic_jax.mesh.locator import build_locator_grid
 
     coords, tris, _cls = gen.tokamak_mesh(8, 40)
     m = Mesh2D.from_arrays(coords, tris)
@@ -824,7 +824,7 @@ def test_recover_project_3d_contained_strand():
 def test_band_locator_detection_and_walk_parity():
     """On a stitched flux-band mesh (tokamak), the band-aligned locator must
     drive search_mesh_2d_accel to walk-identical results."""
-    from pumipic_tpu.mesh.locator import detect_banded_locator
+    from pumipic_jax.mesh.locator import detect_banded_locator
 
     # detection needs enough ring vertices to fit the D-shapes; coarse
     # meshes legitimately return None (cartesian fallback)
@@ -874,7 +874,7 @@ def test_band_locator_detection_and_walk_parity():
 def test_band_locator_detection_negatives():
     """Meshes without the stitched band structure must be rejected (callers
     fall back to the cartesian grid)."""
-    from pumipic_tpu.mesh.locator import detect_banded_locator
+    from pumipic_jax.mesh.locator import detect_banded_locator
 
     # rectangle: classification all ones, no rings
     coords, tris = gen.rectangle_mesh(8, 8)
@@ -902,14 +902,14 @@ def test_band_locator_in_dp_model_matches_cartesian():
     with the cartesian locator (walk results are locator-independent)."""
     import dataclasses as dc
 
-    from pumipic_tpu.models.pseudo_xgcm import (
+    from pumipic_jax.models.pseudo_xgcm import (
         GyroConfig, XGCmConfig, make_dp_setup,
     )
-    from pumipic_tpu.parallel.mesh_axis import make_device_mesh
+    from pumipic_jax.parallel.mesh_axis import make_device_mesh
 
     coords, tris, cls = gen.tokamak_mesh(24, 120)
     m = Mesh2D.from_arrays(coords, tris, cls)
-    from pumipic_tpu.mesh.locator import detect_banded_locator
+    from pumipic_jax.mesh.locator import detect_banded_locator
     assert detect_banded_locator(
         np.asarray(coords), np.asarray(tris), np.asarray(cls),
         m.walk_geom) is not None     # the band path is actually taken
@@ -937,44 +937,45 @@ def test_band_locator_in_dp_model_matches_cartesian():
 
 
 def test_band_locator_cost_gate():
-    """detect_banded_locator's measured-cost adoption gate: band-structured
-    meshes are still rejected under 'auto' when the gather cost model
-    predicts the cartesian peel wins (perf/gather_cost_surface.py — on
-    small tables every consumed column prices at particle rate, so the
-    band table's 14-col consume never beats a sub-large cartesian
-    table).  A generous gate admits; a tight one rejects."""
-    from pumipic_tpu.mesh.locator import (
-        detect_banded_locator, predict_rowgather_ms,
+    """Without a measured cost model, band adoption is explicit: the
+    detection itself still proves band structure, 'auto' keeps the
+    cartesian grid and 'force' builds the band grid."""
+    import dataclasses as dc
+
+    from pumipic_jax.mesh.locator import (
+        BandGrid2D, LocatorGrid2D, detect_banded_locator,
+    )
+    from pumipic_jax.models.pseudo_xgcm import (
+        GyroConfig, PseudoXGCm, XGCmConfig,
     )
 
     coords, tris, cls = gen.tokamak_mesh(16, 96)
     m = Mesh2D.from_arrays(coords, tris, cls)
     a = np.asarray
-    assert detect_banded_locator(a(coords), a(tris), a(cls), m.walk_geom,
-                                 cost_gate_ms=1e9) is not None
-    assert detect_banded_locator(a(coords), a(tris), a(cls), m.walk_geom,
-                                 cost_gate_ms=1.0) is None
-    # the cost model itself: small tables price consumed columns, large
-    # tables price bytes (regime constants from the chip measurement)
-    assert predict_rowgather_ms(100_000, 14, 2) < 35
-    assert predict_rowgather_ms(100_000, 14, 14) > 100
-    assert 60 < predict_rowgather_ms(500_000, 14, 14) < 80
-    assert predict_rowgather_ms(2_000_000, 14, 14) > 110
+    assert detect_banded_locator(a(coords), a(tris), a(cls),
+                                 m.walk_geom) is not None
+    cfg = XGCmConfig(num_ptcls=512, mdl_face=8, deg_per_push=10.0,
+                     max_search_iters=64,
+                     gyro=GyroConfig(rmax=0.05, num_rings=2,
+                                     points_per_ring=4))
+    assert isinstance(PseudoXGCm(m, cfg).locator, LocatorGrid2D)
+    assert isinstance(
+        PseudoXGCm(m, dc.replace(cfg, band_locator="force")).locator,
+        BandGrid2D)
 
 
 def test_band_adoption_gate_wired_into_model_setups(monkeypatch):
-    """REGRESSION (round-5 review): every model entry point must pass the
-    measured-cost adoption gate to detect_banded_locator under
-    band_locator='auto' — make_dp_setup (the bench.py metric-of-record
-    path) once omitted it, silently adopting the measured-slower band arm
-    on the 120k workload.  'force' must bypass the gate (gate None)."""
+    """Every model entry point builds the band grid only under
+    band_locator='force': make_dp_setup (the bench.py metric-of-record
+    path) and the PseudoXGCm class never run band detection under 'auto'
+    or 'off'."""
     import dataclasses as dc
 
-    import pumipic_tpu.mesh.locator as loc
-    from pumipic_tpu.models.pseudo_xgcm import (
+    import pumipic_jax.mesh.locator as loc
+    from pumipic_jax.models.pseudo_xgcm import (
         GyroConfig, PseudoXGCm, XGCmConfig, make_dp_setup,
     )
-    from pumipic_tpu.parallel.mesh_axis import make_device_mesh
+    from pumipic_jax.parallel.mesh_axis import make_device_mesh
 
     coords, tris, cls = gen.tokamak_mesh(16, 96)
     m = Mesh2D.from_arrays(coords, tris, cls)
@@ -986,23 +987,19 @@ def test_band_adoption_gate_wired_into_model_setups(monkeypatch):
     real = loc.detect_banded_locator
 
     def spy(*a, **kw):
-        seen.append(kw.get("cost_gate_ms"))
+        seen.append(kw.get("n_theta"))
         return real(*a, **kw)
 
     monkeypatch.setattr(loc, "detect_banded_locator", spy)
 
     mesh_dev = make_device_mesh(1)
     make_dp_setup(m, cfg, mesh_dev)                       # auto (default)
-    assert len(seen) == 1 and seen[0] is not None
-    # the gate is the cartesian alternative's predicted cost — a real
-    # positive milliseconds figure, never an uninitialized 0/None
-    assert 0 < seen[0] < 1e4
-
-    PseudoXGCm(m, cfg)                                    # model class: auto
-    assert len(seen) == 2 and seen[1] is not None
+    PseudoXGCm(m, dc.replace(cfg, band_locator="off"))
+    assert seen == []
 
     make_dp_setup(m, dc.replace(cfg, band_locator="force"), mesh_dev)
-    assert len(seen) == 3 and seen[2] is None             # force bypasses
+    PseudoXGCm(m, dc.replace(cfg, band_locator="force"))
+    assert len(seen) == 2
 
 
 def test_band_locator_config_validation():
@@ -1011,10 +1008,10 @@ def test_band_locator_config_validation():
     claims the peel's aux channel."""
     import dataclasses as dc
 
-    from pumipic_tpu.models.pseudo_xgcm import (
+    from pumipic_jax.models.pseudo_xgcm import (
         GyroConfig, PseudoXGCm, XGCmConfig, make_dp_setup,
     )
-    from pumipic_tpu.parallel.mesh_axis import make_device_mesh
+    from pumipic_jax.parallel.mesh_axis import make_device_mesh
 
     coords, tris, cls = gen.tokamak_mesh(8, 48)
     m = Mesh2D.from_arrays(coords, tris, cls)
@@ -1038,7 +1035,7 @@ def test_band_locator_config_validation():
 def test_band_locator_rejects_f32_inexact_n_theta():
     """An explicit n_theta pushing K*T past 2^24 must raise: band cell ids
     ride f32 peel columns and would silently round."""
-    from pumipic_tpu.mesh.locator import detect_banded_locator
+    from pumipic_jax.mesh.locator import detect_banded_locator
 
     coords, tris, cls = gen.tokamak_mesh(16, 96)
     m = Mesh2D.from_arrays(coords, tris, cls)
@@ -1051,7 +1048,7 @@ def test_band_locator_rejects_f32_inexact_n_theta():
 def test_2d_locator_rejects_3d_only_peels():
     """build_locator_grid (2D) must reject the 3D-only id-diet peels
     instead of silently attaching plain rows."""
-    from pumipic_tpu.mesh.locator import build_locator_grid
+    from pumipic_jax.mesh.locator import build_locator_grid
 
     coords, tris, _ = gen.annulus_mesh(5, 16, 0.3, 1.0)
     m = Mesh2D.from_arrays(coords, tris)
@@ -1065,7 +1062,7 @@ def test_annulus_detection_permutation_and_rotation_tolerant():
     """Imported structured annuli (shuffled vertex/element order + a rigid
     rotation — the gmsh round-trip class) must still be detection-proven;
     locate maps canonical ids through the recovered permutation."""
-    from pumipic_tpu.mesh.locator import detect_annulus_structured
+    from pumipic_jax.mesh.locator import detect_annulus_structured
 
     coords, tris, cls = gen.annulus_mesh(12, 64, 0.3, 1.0)
     rng = np.random.default_rng(3)
@@ -1099,7 +1096,7 @@ def test_annulus_detection_permutation_and_rotation_tolerant():
 
 
 def test_kuhn_detection_permutation_tolerant():
-    from pumipic_tpu.mesh.locator import detect_box_kuhn
+    from pumipic_jax.mesh.locator import detect_box_kuhn
 
     coords, tets = gen.box_tet_mesh(6, 5, 4)
     rng = np.random.default_rng(4)
@@ -1128,7 +1125,7 @@ def test_kuhn_detection_permutation_tolerant():
 def test_strict_detection_still_identity():
     """The generator's own output must keep the gather-free identity path
     (perm None, ring_class proven) — the flagship bench contract."""
-    from pumipic_tpu.mesh.locator import (
+    from pumipic_jax.mesh.locator import (
         detect_annulus_structured, detect_box_kuhn,
     )
 
@@ -1149,7 +1146,7 @@ def test_stationary_walkers_from_wrong_parent_3d():
     loop limit and deleted by method='hybrid' (the lo-ld denominator is
     1-ulp fusion noise at v == 0).  Both must walk to the true containing
     element like method='bcc' does."""
-    from pumipic_tpu.mesh.generate import box_tet_mesh
+    from pumipic_jax.mesh.generate import box_tet_mesh
 
     coords, tets = gen.box_tet_mesh(5, 5, 5)
     mesh = Mesh3D.from_arrays(coords, tets)

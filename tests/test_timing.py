@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pumipic_tpu.utils import timing as tm
+from pumipic_jax.utils import timing as tm
 
 
 def test_record_and_summarize_with_prebarrier():
@@ -60,11 +60,11 @@ def test_summarize_across_devices():
 
 
 def test_picparts_stats_expose_per_rank_telemetry():
-    from pumipic_tpu.mesh import generate as gen
-    from pumipic_tpu.models.pseudo_xgcm import (
+    from pumipic_jax.mesh import generate as gen
+    from pumipic_jax.models.pseudo_xgcm import (
         GyroConfig, XGCmConfig, make_picparts_setup,
     )
-    from pumipic_tpu.parallel.mesh_axis import make_device_mesh
+    from pumipic_jax.parallel.mesh_axis import make_device_mesh
 
     R = 4
     coords, tris, cls = gen.annulus_mesh(6, 32, 0.3, 1.0)
@@ -95,7 +95,7 @@ def test_memaudit_leak_check_detects_growth_and_flat_loops():
     import jax
     import jax.numpy as jnp
 
-    from pumipic_tpu.utils import memaudit
+    from pumipic_jax.utils import memaudit
 
     @jax.jit
     def step(s):
